@@ -1,4 +1,4 @@
-"""richdem_tpu — a TPU-native terrain-analysis engine.
+"""richdem_tpu — an accelerator-native terrain-analysis engine.
 
 A from-scratch JAX/XLA/Pallas re-design of the RichDEM capability set
 (see SURVEY.md at the repo root for the full blueprint): depression filling
@@ -12,16 +12,17 @@ RichDEM scripts port by changing the import.
 
 import os as _os
 
-if _os.environ.get("RICHDEM_TPU_NO_COMPILE_CACHE") != "1":
-    # Persistent XLA compilation cache: the sweep/scan graphs take tens of
-    # seconds to compile through the TPU toolchain; cache them across
-    # processes (harmless on CPU).
+#: Persistent compile cache used when ``JAX_COMPILATION_CACHE_DIR`` is
+#: unset: a fixed path inside the checkout, so a copied tree hits it.
+DEFAULT_CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache")
+
+if ("JAX_COMPILATION_CACHE_DIR" not in _os.environ
+        and _os.environ.get("RICHDEM_TPU_NO_COMPILE_CACHE") != "1"):
     import jax as _jax
 
-    _jax.config.update(
-        "jax_compilation_cache_dir",
-        _os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                        _os.path.expanduser("~/.cache/richdem_tpu_xla")))
+    _jax.config.update("jax_compilation_cache_dir", DEFAULT_CACHE_DIR)
     _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 from richdem_tpu.version import __version__

@@ -11,7 +11,7 @@ A RichDEM user should be able to switch imports and keep their script:
 
 Differences from pyrichdem, all deliberate and documented:
 
-* computation happens on the TPU/accelerator via JAX ops (the
+* computation happens on the accelerator via JAX ops (the
   ``richdem_tpu.ops`` fixpoint kernels), not a serial C++ heap;
 * ``epsilon`` fills use a fixed auto-chosen epsilon, not ``nextafter``
   chains (appendix A.2 — same drainage structure, order-independent);
@@ -24,7 +24,6 @@ Differences from pyrichdem, all deliberate and documented:
 
 from __future__ import annotations
 
-import jax
 import numpy as np
 import jax.numpy as jnp
 
@@ -76,7 +75,7 @@ def SaveGDAL(filename, rdarray_in):
 # -- hydrological conditioning -----------------------------------------
 
 def FillDepressions(dem, epsilon=False, in_place=False, topology="D8",
-                    max_iters=1024):
+                    max_iters=None):
     """Depression filling (device sweep fixpoint == Priority-Flood).
 
     ``epsilon``: False → plain fill; True → auto epsilon; a float → that
@@ -94,26 +93,21 @@ def FillDepressions(dem, epsilon=False, in_place=False, topology="D8",
     z = rd.jnp()
     mask = ops.stencil.nodata_like(z, rd.no_data)
     if topology == "D4":
-        from richdem_tpu.ops.sweeps import BIG
-        if jax.default_backend() == "tpu":
-            # D4 = the fill sweep with diagonal edges priced out.  BIG/2
-            # (not BIG) so the off-grid boundary injection -BIG + eps_diag
-            # stays hugely negative instead of cancelling to 0.
-            from richdem_tpu.ops.pallas_folded import fill_fixpoint_pallas
-            filled, _, _ = fill_fixpoint_pallas(
-                z, mask, eps=eps, eps_diag=BIG / 2, max_iters=max_iters)
-            filled = filled.astype(z.dtype)
-        else:
-            costs = jnp.asarray(
-                [eps, BIG, eps, BIG, eps, BIG, eps, BIG],
-                z.dtype)[:, None, None] * jnp.ones_like(z)[None]
-            neg = jnp.asarray(-BIG, z.dtype)
-            floor = jnp.where(mask, neg, z)
-            w0 = jnp.where(mask, neg, jnp.asarray(BIG, z.dtype))
-            from richdem_tpu.ops.sweeps import minplus_fixpoint
-            filled, _, _ = minplus_fixpoint(w0, floor, costs, boundary=neg,
-                                            max_iters=max_iters)
-            filled = jnp.where(mask, z, filled)
+        from richdem_tpu.ops.sweeps import (BIG, fixpoint_cap,
+                                            minplus_fixpoint,
+                                            require_converged)
+        # D4 = the fill sweep with diagonal edges priced out
+        costs = jnp.asarray(
+            [eps, BIG, eps, BIG, eps, BIG, eps, BIG],
+            z.dtype)[:, None, None] * jnp.ones_like(z)[None]
+        neg = jnp.asarray(-BIG, z.dtype)
+        floor = jnp.where(mask, neg, z)
+        w0 = jnp.where(mask, neg, jnp.asarray(BIG, z.dtype))
+        filled, _, done = minplus_fixpoint(w0, floor, costs, boundary=neg,
+                                           max_iters=max_iters)
+        require_converged(done, "D4 depression fill",
+                          max_iters or fixpoint_cap(z.shape))
+        filled = jnp.where(mask, z, filled)
     else:
         filled = ops.fill_depressions(z, no_data=rd.no_data, eps=eps,
                                       max_iters=max_iters)
@@ -256,11 +250,10 @@ def FlowAccumulation(dem, method="D8", exponent=None, weights=None,
                      in_place=False, seed=0):
     """Upstream flow accumulation for any metric.
 
-    Single-flow metrics (D8/D4/Rho8/Rho4) ride the Gauss–Seidel line-
-    sweep engine (Pallas strips on TPU; ``ops.accum._d8_gs_impl``
-    elsewhere — pointer doubling remains available as
-    ``ops.accum.d8_accumulation_doubling``); divergent metrics use the
-    GS sweeps on TPU and the Jacobi inflow fixpoint on CPU."""
+    Single-flow metrics (D8/D4/Rho8/Rho4) ride the Gauss–Seidel line
+    sweeps (``ops.accum.d8_accumulation``: the row-walk kernel on a GPU,
+    XLA line scans elsewhere); divergent metrics use the Jacobi inflow
+    fixpoint."""
     cite(method)
     rd = _as_rd(dem)
     z = rd.jnp()

@@ -3,7 +3,7 @@
 The reference's only resilience mechanism is *restartability*: the
 parallel programs evict tiles to ``--cache-dir`` as native ``.dat`` rasters
 between phases, so a killed job can rerun a phase from disk (SURVEY.md
-§5.3/5.4, ``Array2D::saveNative``/``loadNative``).  The TPU-native
+§5.3/5.4, ``Array2D::saveNative``/``loadNative``).  The device-native
 equivalent here: every pipeline phase can persist its output raster(s) to
 an ``.npy`` keyed by ``(grid_id, phase, shard)``; a rerun loads finished
 phases and recomputes only what is missing.  Batch posture, exactly like

@@ -1,4 +1,4 @@
-"""Command-line multiplexer — TPU-native replacement for the reference's
+"""Command-line multiplexer — device-native replacement for the reference's
 ~15 single-purpose ``apps/rd_*.cpp`` tools (SURVEY.md §2.3), as one
 ``python -m richdem_tpu.cli <verb>`` entry point.
 

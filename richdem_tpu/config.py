@@ -29,7 +29,7 @@ class PipelineConfig:
     #: compute dtype policy for rasters on device
     dtype: str = "float32"
     #: fixpoint iteration caps
-    fill_iters: int = 256
+    fill_iters: int | None = None
     accum_rotations: int = 64
     #: attach slope + TWI outputs
     with_twi: bool = False

@@ -4,15 +4,13 @@ The reference's observability is phase timers (``Timer``/``RDLOG_TIME_USE``)
 and ``-Wall`` hygiene; JAX's functional model removes data races by
 construction, so the equivalents here are:
 
-* :func:`trace` — ``jax.profiler`` trace context for a phase (the TPU
-  analog of the reference's per-phase timers, but with full XLA/Mosaic
-  op-level timelines viewable in TensorBoard/Perfetto);
+* :func:`trace` — ``jax.profiler`` trace context for a phase (the device
+  analog of the reference's per-phase timers, but with full op-level
+  timelines viewable in TensorBoard/Perfetto);
 * :class:`PhaseTimer` — cheap wall-clock phase timers with a printed
   summary, RDLOG_TIME_USE-style;
 * :func:`check_raster` — checkify-based NaN/Inf + bounds validation of a
-  raster op (debug mode; the reference has no sanitizer, we do);
-* interpret-mode kernels: wrap any Pallas-using call in
-  ``pltpu.force_tpu_interpret_mode()`` (used by the CPU test-suite).
+  raster op (debug mode; the reference has no sanitizer, we do).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Raster container: the TPU-native replacement for RichDEM's ``Array2D``.
+"""Raster container: the device-native replacement for RichDEM's ``Array2D``.
 
 The reference (SURVEY.md §2.1, ``include/richdem/common/Array2D.hpp``) couples
 storage, nodata, geotransform, projection, and GDAL IO in one templated C++
@@ -29,7 +29,7 @@ class rdarray:
 
     Mirrors pyrichdem's ``rdarray`` surface: ``no_data``, ``geotransform``,
     ``projection``, ``metadata``, numpy interop via ``__array__``, shape /
-    dtype / indexing passthrough.  The payload may live on TPU (``jax.Array``)
+    dtype / indexing passthrough.  The payload may live on device (``jax.Array``)
     or host (``numpy.ndarray``); ``.np()`` / ``.jnp()`` convert explicitly.
     """
 

@@ -1,7 +1,7 @@
 """Raster IO without GDAL (SURVEY.md §7 hard-part 7).
 
 The reference's L0 couples IO to GDAL (``Array2D::loadGDAL/saveGDAL``) plus
-a native ``.dat`` cache (``saveNative``).  TPU hosts ship no GDAL, so this
+a native ``.dat`` cache (``saveNative``).  Accelerator hosts ship no GDAL, so this
 package provides:
 
 * ``.npz`` rasters with embedded georeferencing/metadata — the native

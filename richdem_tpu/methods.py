@@ -17,10 +17,11 @@ import jax.numpy as jnp
 import numpy as np
 
 from richdem_tpu.ops.stencil import neighbor
+from richdem_tpu.ops.sweeps import require_converged
 from richdem_tpu.topology import DX, DY, D8_INVERSE
 
 __all__ = ["twi", "spi", "watersheds_from_flowdirs", "upslope_cells",
-           "strahler_order"]
+           "strahler_order", "strahler_order_info"]
 
 
 @jax.jit
@@ -54,37 +55,14 @@ def _successors(fd):
     return jnp.where(valid, nr * w + nc, self_idx).reshape(-1)
 
 
-def _fd_effective(fd):
-    """fd with off-grid-pointing cells turned into terminals (code 0)."""
-    fd = jnp.asarray(fd).astype(jnp.int32)
-    h, w = fd.shape
-    rows = jax.lax.broadcasted_iota(jnp.int32, (h, w), 0)
-    cols = jax.lax.broadcasted_iota(jnp.int32, (h, w), 1)
-    dy = jnp.asarray(np.asarray(DY, np.int32))[fd.clip(0)]
-    dx = jnp.asarray(np.asarray(DX, np.int32))[fd.clip(0)]
-    nr, nc = rows + dy, cols + dx
-    valid = (fd > 0) & (nr >= 0) & (nr < h) & (nc >= 0) & (nc < w)
-    return jnp.where(valid, fd, 0)
-
-
 @jax.jit
 def watersheds_from_flowdirs(flowdirs):
     """Label every cell with the flat index of its terminal cell — the
     drainage-basin partition (reference ``find_watersheds``).
-    Nodata/NO_FLOW cells label themselves.
-
-    TPU: successor-resolve GS sweeps (Pallas); elsewhere log-depth pointer
-    doubling (⌈log2 L⌉ gather rounds)."""
+    Nodata/NO_FLOW cells label themselves.  Log-depth pointer doubling
+    (⌈log2 L⌉ gather rounds)."""
     fd = jnp.asarray(flowdirs)
     h, w = fd.shape
-    if jax.default_backend() == "tpu" and max(h, w) >= 512:
-        from richdem_tpu.ops.pallas_folded import successor_resolve_folded
-        fd_eff = _fd_effective(fd)
-        self_idx = (jax.lax.broadcasted_iota(jnp.int32, (h, w), 0) * w
-                    + jax.lax.broadcasted_iota(jnp.int32, (h, w), 1))
-        pinned = fd_eff == 0
-        init = jnp.where(pinned, self_idx, -1)
-        return successor_resolve_folded(fd_eff, init, pinned)
     succ = _successors(fd)
     rounds = max(1, int(np.ceil(np.log2(max(h * w, 2)))))
 
@@ -98,18 +76,10 @@ def watersheds_from_flowdirs(flowdirs):
 @jax.jit
 def upslope_cells(seed_mask, flowdirs):
     """Cells whose flow path passes through any seed cell (inclusive) —
-    reference ``d8_upslope_cells``.  Successor-resolve GS sweeps on TPU;
-    doubling on (successor, hit-seed) elsewhere."""
+    reference ``d8_upslope_cells``.  Pointer doubling on (successor,
+    hit-seed)."""
     fd = jnp.asarray(flowdirs)
     h, w = fd.shape
-    if jax.default_backend() == "tpu" and max(h, w) >= 512:
-        from richdem_tpu.ops.pallas_folded import successor_resolve_folded
-        fd_eff = _fd_effective(fd)
-        seeds = jnp.asarray(seed_mask)
-        pinned = seeds | (fd_eff == 0)
-        init = jnp.where(seeds, 1, 0)
-        out = successor_resolve_folded(fd_eff, init, pinned)
-        return out > 0
     succ = _successors(fd)
     hit = jnp.asarray(seed_mask).reshape(-1)
     rounds = max(1, int(np.ceil(np.log2(max(h * w, 2)))))
@@ -123,18 +93,18 @@ def upslope_cells(seed_mask, flowdirs):
 
 
 @partial(jax.jit, static_argnames=("max_iters",))
-def strahler_order(flowdirs, max_iters=4096):
-    """Strahler stream order via monotone fixpoint.
+def strahler_order_info(flowdirs, max_iters=None):
+    """Strahler stream order via monotone fixpoint; returns ``(order,
+    iters, converged)``.
 
     order(c) = m if the max order among inflowing neighbors is m and it is
     unique, m+1 if two or more inflowing neighbors attain m; leaves
     (no inflow) have order 1.  Iterated as a monotone nondecreasing
-    stencil fixpoint (converges in longest-flow-path steps); on TPU the
-    folded GS sweeps converge in a few rotations instead."""
+    stencil fixpoint, which converges one step after the longest flow
+    path; ``max_iters`` defaults to a cap no flow path can reach."""
     fd = jnp.asarray(flowdirs).astype(jnp.int32)
-    if jax.default_backend() == "tpu" and max(fd.shape) >= 512:
-        from richdem_tpu.ops.pallas_folded import strahler_folded
-        return strahler_folded(fd)
+    if max_iters is None:
+        max_iters = fd.shape[0] * fd.shape[1] + 2
     data = fd >= 0
 
     def inflow_orders(order):
@@ -164,7 +134,13 @@ def strahler_order(flowdirs, max_iters=4096):
         return new, it + 1, jnp.all(new == order)
 
     order0 = jnp.where(data, 1, 0).astype(jnp.int32)
-    order, _, _ = jax.lax.while_loop(cond, body,
-                                     (order0, jnp.int32(0),
-                                      jnp.bool_(False)))
+    return jax.lax.while_loop(cond, body,
+                              (order0, jnp.int32(0), jnp.bool_(False)))
+
+
+def strahler_order(flowdirs, max_iters=None):
+    """Strahler stream order (see :func:`strahler_order_info`); raises if
+    the fixpoint does not converge within ``max_iters``."""
+    order, iters, done = strahler_order_info(flowdirs, max_iters=max_iters)
+    require_converged(done, "Strahler order", int(iters))
     return order

@@ -1,7 +1,7 @@
 """ctypes bindings for the native CPU reference engine (core.cpp).
 
 The reference's algorithm core is header-only C++ (SURVEY.md §2.2); this
-package keeps a native single-core implementation too — not as the TPU
+package keeps a native single-core implementation too — not as the device
 compute path (that is JAX/XLA/Pallas) but as:
 
 * the **measured CPU baseline** for ``bench.py`` (BASELINE.md's ">10× a

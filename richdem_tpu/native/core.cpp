@@ -3,7 +3,7 @@
 // The reference implements its entire algorithm core as header-only C++
 // (SURVEY.md §2.2: include/richdem/depressions/Barnes2014.hpp,
 // flowmet/d8_flowdirs.hpp, methods/flow_accumulation_generic.hpp).  This
-// translation unit is the TPU package's native counterpart, written
+// translation unit is the package's native counterpart, written
 // clean-room from the published pseudocode (Barnes, Lehman & Mulla 2014,
 // arxiv 1511.04463; appendix A of SURVEY.md):
 //
@@ -652,7 +652,7 @@ int rn_resolve_flats(const double* z, int8_t* fd, int64_t h, int64_t w,
 
 // ---------------------------------------------------------------------------
 // Divergent flow metrics + terrain tail — the single-core counterparts of
-// the TPU pipeline configs (bench.py BENCH_CONFIG=dinf_twi / quinn_mfd), so
+// the device pipeline configs (bench.py BENCH_CONFIG=dinf_twi / quinn_mfd), so
 // each config's vs_baseline divides by a baseline doing the SAME work.
 // Mirrors richdem_tpu/oracle/flowdirs.py (Tarboton 1997 facets, Quinn/
 // Holmgren slope^exponent proportions; reference flowmet/ semantics per

@@ -1,4 +1,4 @@
-"""Device ops: the TPU-native algorithm layer (reference L1 — SURVEY.md §2.2).
+"""Device ops: the data-parallel algorithm layer (reference L1 — SURVEY.md §2.2).
 
 Everything here is a pure, jittable function on ``jnp`` arrays.  Serial
 priority queues are banned by design (SURVEY.md appendix B): depression

@@ -9,12 +9,12 @@ appendix A.6).  Two strategies, both queue-free:
   us).  ``P`` is nilpotent on the post-fill DAG, so iteration converges in
   longest-flow-path steps.  Used for multi-flow metrics and as a
   cross-check.
-* **Gauss–Seidel line sweeps** (the TPU fast path, Pallas kernels in
-  ``ops.pallas_folded``/``ops.pallas_mfd``): one directional sweep
-  resolves every monotone flow-path segment, so a few rotations converge
-  where Jacobi needs O(longest-path) iterations.  Pointer doubling
-  (``succ_k = succ^{2^k}``, ⌈log₂ L⌉ scatter rounds) is retained as a
-  cross-check; scatters serialize on TPU.
+* **Gauss–Seidel line sweeps** (D8): one directional sweep resolves
+  every monotone flow-path segment, so a few rotations converge where
+  Jacobi needs O(longest-path) iterations.  On a GPU the sweeps run as
+  the row-walk kernel of :mod:`richdem_tpu.ops.accum_rowwalk`; elsewhere
+  as the XLA line scan below, which is the CPU engine and the kernel's
+  cross-check.
 """
 
 from __future__ import annotations
@@ -23,13 +23,13 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from richdem_tpu.ops.stencil import neighbor
-from richdem_tpu.topology import DX, DY, D8_INVERSE
+from richdem_tpu.ops.sweeps import require_converged
+from richdem_tpu.topology import D8_INVERSE
 
 __all__ = ["flow_accumulation_from_props", "d8_accumulation",
-           "d8_accumulation_doubling", "accumulation_jacobi_info"]
+           "d8_accumulation_info", "accumulation_jacobi_info", "jacobi_cap"]
 
 
 def _inflow_step(acc, props):
@@ -45,12 +45,22 @@ def _inflow_step(acc, props):
     return total
 
 
+def jacobi_cap(h, w, check_every=8):
+    """Iteration cap that no acyclic flow field can reach: Jacobi
+    converges one step after the longest flow path, which has at most
+    ``h * w`` cells."""
+    return h * w + 2 * check_every
+
+
 @partial(jax.jit, static_argnames=("max_iters", "check_every"))
-def accumulation_jacobi_info(props, weights=None, max_iters=4096,
+def accumulation_jacobi_info(props, weights=None, max_iters=None,
                              check_every=8):
-    """Jacobi accumulation; returns ``(accum, iters, converged)``."""
+    """Jacobi accumulation; returns ``(accum, iters, converged)``.
+    ``max_iters`` defaults to :func:`jacobi_cap` of the grid."""
     props = jnp.asarray(props)
     h, w, _ = props.shape
+    if max_iters is None:
+        max_iters = jacobi_cap(h, w, check_every)
     dtype = props.dtype if props.dtype == jnp.float64 else jnp.float32
     if weights is None:
         weights = jnp.ones((h, w), dtype)
@@ -76,24 +86,27 @@ def accumulation_jacobi_info(props, weights=None, max_iters=4096,
     return acc, iters, done
 
 
+def _jacobi_checked(props, weights, no_data_mask, max_iters, what):
+    acc, iters, done = accumulation_jacobi_info(props, weights,
+                                                max_iters=max_iters)
+    h, w = acc.shape
+    require_converged(done, what, max_iters or jacobi_cap(h, w))
+    if no_data_mask is not None:
+        acc = jnp.where(jnp.asarray(no_data_mask), 0.0, acc)
+    return acc, iters, done
+
+
 def flow_accumulation_from_props(props, weights=None, no_data_mask=None,
-                                 max_iters=4096, return_info=False):
+                                 max_iters=None, return_info=False):
     """Weighted upstream accumulation from (H, W, 8) proportions.
 
     Nodata cells must already have zero proportions (they do, from
     :mod:`richdem_tpu.ops.flowdirs`); the mask only zeroes their output.
-    On TPU this runs the Pallas GS sweeps (engine-dispatching, see
-    ``pallas_mfd.mfd_accumulation_gs``).  ``return_info`` additionally
-    returns ``(rotations, converged)``."""
-    if jax.default_backend() == "tpu":
-        from richdem_tpu.ops.pallas_mfd import mfd_accumulation_gs
-        return mfd_accumulation_gs(props, weights=weights,
-                                   no_data_mask=no_data_mask,
-                                   return_info=return_info)
-    acc, iters, done = accumulation_jacobi_info(props, weights,
-                                                max_iters=max_iters)
-    if no_data_mask is not None:
-        acc = jnp.where(jnp.asarray(no_data_mask), 0.0, acc)
+    Raises if the Jacobi fixpoint does not converge within ``max_iters``
+    (default: sized from the grid).  ``return_info`` additionally returns
+    ``(iterations, converged)``."""
+    acc, iters, done = _jacobi_checked(props, weights, no_data_mask,
+                                       max_iters, "multi-flow accumulation")
     if return_info:
         return acc, iters, done
     return acc
@@ -101,95 +114,28 @@ def flow_accumulation_from_props(props, weights=None, no_data_mask=None,
 
 def dinf_accumulation_from_angles(angles, weights=None, no_data_mask=None,
                                   return_info=False):
-    """D∞ accumulation straight from the Tarboton angle raster.
-
-    TPU: the two-tap folded GS kernel (:mod:`richdem_tpu.ops.pallas_dinf`
-    — ~half the HBM traffic of the generic 8-plane path, same fixpoint).
-    Elsewhere: decoded proportions through the generic engine.
-    ``return_info`` additionally returns ``(rotations, converged)``."""
-    if jax.default_backend() == "tpu":
-        from richdem_tpu.ops.pallas_dinf import (dinf_accumulation_gs,
-                                                 dinf_two_tap)
-        code, p = dinf_two_tap(jnp.asarray(angles))
-        return dinf_accumulation_gs(code, p, weights=weights,
-                                    no_data_mask=no_data_mask,
-                                    return_info=return_info)
+    """D∞ accumulation straight from the Tarboton angle raster (decoded
+    proportions through the Jacobi engine).  ``return_info``
+    additionally returns ``(iterations, converged)``."""
     from richdem_tpu.ops.flowdirs import proportions_from_dinf
     props = proportions_from_dinf(jnp.asarray(angles))
-    acc, iters, done = accumulation_jacobi_info(props, weights)
-    if no_data_mask is not None:
-        acc = jnp.where(jnp.asarray(no_data_mask), 0.0, acc)
+    acc, iters, done = _jacobi_checked(props, weights, no_data_mask, None,
+                                       "D-infinity accumulation")
     if return_info:
         return acc, iters, done
     return acc
 
 
-# -- D8 pointer doubling ------------------------------------------------
-
-@partial(jax.jit, static_argnames=("rounds",))
-def _d8_doubling_impl(flowdirs, weights, rounds):
-    fd = jnp.asarray(flowdirs).astype(jnp.int32)
-    h, w = fd.shape
-    n = h * w
-    sink = n  # virtual terminal: NO_FLOW / nodata / off-grid flows here
-
-    rows = jax.lax.broadcasted_iota(jnp.int32, (h, w), 0)
-    cols = jax.lax.broadcasted_iota(jnp.int32, (h, w), 1)
-    dy = jnp.asarray(np.asarray(DY, np.int32))[fd.clip(0)]
-    dx = jnp.asarray(np.asarray(DX, np.int32))[fd.clip(0)]
-    nr, nc = rows + dy, cols + dx
-    valid = (fd > 0) & (nr >= 0) & (nr < h) & (nc >= 0) & (nc < w)
-    succ0 = jnp.where(valid, nr * w + nc, sink).reshape(-1)
-    succ0 = jnp.append(succ0, sink)  # sink loops to itself
-
-    acc0 = jnp.append(weights.reshape(-1), 0.0)
-
-    def body(_, state):
-        succ, acc = state
-        # add my accumulated upstream mass to my 2^k-th successor …
-        acc = acc.at[succ].add(jnp.where(
-            jnp.arange(n + 1) < n, acc, 0.0))
-        # … and square the successor pointer
-        succ = succ[succ]
-        return succ, acc
-
-    _, acc = jax.lax.fori_loop(0, rounds, body, (succ0, acc0))
-    return acc[:n].reshape(h, w)
-
-
-def d8_accumulation_doubling(flowdirs, weights=None, no_data_mask=None,
-                             rounds=None):
-    """Exact D8 accumulation in ⌈log₂(n)⌉ scatter-add rounds.
-
-    Log-depth but scatter-bound on TPU (~100M random accesses/s); prefer
-    :func:`d8_accumulation` (Gauss–Seidel line sweeps) for large grids."""
-    fd = jnp.asarray(flowdirs)
-    h, w = fd.shape
-    if weights is None:
-        weights = jnp.ones((h, w), jnp.float32)
-    else:
-        weights = jnp.asarray(weights, jnp.float32)
-    if no_data_mask is not None:
-        weights = jnp.where(jnp.asarray(no_data_mask), 0.0, weights)
-    if rounds is None:
-        rounds = max(1, int(np.ceil(np.log2(max(h * w, 2)))))
-    acc = _d8_doubling_impl(fd, weights, rounds)
-    if no_data_mask is not None:
-        acc = jnp.where(jnp.asarray(no_data_mask), 0.0, acc)
-    return acc
-
-
 # -- D8 Gauss–Seidel directional line sweeps ----------------------------
 #
-# The fast path on TPU.  One "sweep" processes grid lines sequentially in
+# One "sweep" processes grid lines sequentially in
 # one of the 4 axis directions (lax.scan over lines); within a step the
 # new values of the previous line feed the current line, so any flow-path
 # segment that advances monotonically in the sweep direction is resolved
 # in ONE sweep regardless of its length.  Measured on fractal terrain,
 # flow paths change x (or y) direction at most ~once (valley runs are
 # monotone), so a few E/S/W/N rotations converge where Jacobi needs
-# O(longest-path) = O(grid-size) iterations and pointer doubling needs
-# ~27 scatter rounds.  This is the single-chip analog of the reference's
+# O(longest-path) = O(grid-size) iterations.  This is the single-chip analog of the reference's
 # wave-of-sweeps design philosophy, applied to the accumulation recurrence
 # A = w + Pᵀ A (a linear Gauss–Seidel splitting: monotone nondecreasing,
 # exact-equality convergence detection).
@@ -298,16 +244,24 @@ def _d8_gs_impl(flowdirs, weights, max_rotations=64):
     return acc, iters, done
 
 
+def d8_accumulation_info(flowdirs, weights, max_rotations=64):
+    """``(accum, rotations, converged)`` of D8 accumulation; traceable.
+
+    ``weights`` must already be zero on nodata.  The one engine choice:
+    the row-walk kernel on a GPU, the XLA line sweeps elsewhere."""
+    if jax.default_backend() == "gpu":
+        from richdem_tpu.ops.accum_rowwalk import d8_rowwalk_info
+        return d8_rowwalk_info(flowdirs, weights,
+                               max_rotations=max_rotations)
+    return _d8_gs_impl(flowdirs, weights, max_rotations=max_rotations)
+
+
 def d8_accumulation(flowdirs, weights=None, no_data_mask=None,
-                    max_rotations=64):
-    """Exact D8 accumulation via Gauss–Seidel directional line sweeps —
-    the TPU fast path (see block comment above).  On TPU the sweeps run
-    as Pallas strip kernels (``ops.pallas_sweeps``)."""
-    if jax.default_backend() == "tpu":
-        from richdem_tpu.ops.pallas_folded import d8_accumulation_gs
-        return d8_accumulation_gs(flowdirs, weights=weights,
-                                  no_data_mask=no_data_mask,
-                                  max_rotations=max_rotations)
+                    max_rotations=64, return_info=False):
+    """Exact D8 accumulation via Gauss–Seidel directional line sweeps
+    (see block comment above); raises if the sweeps do not converge
+    within ``max_rotations``.  ``return_info`` additionally returns
+    ``(rotations, converged)``."""
     fd = jnp.asarray(flowdirs)
     h, wdt = fd.shape
     if weights is None:
@@ -316,9 +270,10 @@ def d8_accumulation(flowdirs, weights=None, no_data_mask=None,
         weights = jnp.asarray(weights, jnp.float32)
     if no_data_mask is not None:
         weights = jnp.where(jnp.asarray(no_data_mask), 0.0, weights)
-    acc, _, done = _d8_gs_impl(fd, weights, max_rotations=max_rotations)
-    from richdem_tpu.ops.pallas_folded import _require_converged
-    _require_converged(done, "D8 GS accumulation", max_rotations)
+    acc, iters, done = d8_accumulation_info(fd, weights, max_rotations)
+    require_converged(done, "D8 accumulation", max_rotations)
     if no_data_mask is not None:
         acc = jnp.where(jnp.asarray(no_data_mask), 0.0, acc)
+    if return_info:
+        return acc, iters, done
     return acc

@@ -1,6 +1,6 @@
 """Depression filling as an iterative parallel-flood fixpoint (device op).
 
-TPU-native replacement for the reference's serial Priority-Flood
+Data-parallel replacement for the reference's serial Priority-Flood
 (``include/richdem/depressions/Barnes2014.hpp`` — SURVEY.md §2.2, appendix
 A.2): the filled surface is the unique Bellman value
 
@@ -27,7 +27,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from richdem_tpu.ops.stencil import nodata_like
-from richdem_tpu.ops.sweeps import BIG, minplus_fixpoint
+from richdem_tpu.ops.sweeps import (BIG, fixpoint_cap, minplus_fixpoint,
+                                    require_converged)
 from richdem_tpu.topology import DR
 
 __all__ = ["fill_depressions", "fill_epsilon", "fill_depressions_info",
@@ -58,12 +59,13 @@ def auto_epsilon(dem, dtype=None) -> float:
 
 
 @partial(jax.jit, static_argnames=("max_iters", "scale_diagonal"))
-def fill_depressions_info(dem, nodata_mask=None, eps=0.0, max_iters=1024,
+def fill_depressions_info(dem, nodata_mask=None, eps=0.0, max_iters=None,
                           scale_diagonal=False):
     """Fill; returns ``(filled, iters, converged)``.
 
     ``nodata_mask``: optional bool (H, W) — nodata regions act as drains
-    and are returned unchanged.  ``scale_diagonal``: multiply eps by sqrt(2)
+    and are returned unchanged.  ``max_iters`` defaults to
+    :func:`~richdem_tpu.ops.sweeps.fixpoint_cap` of the grid.  ``scale_diagonal``: multiply eps by sqrt(2)
     on diagonal edges (Planchon–Darboux flavor); default off to match the
     reference's uniform-epsilon behavior.
     """
@@ -83,30 +85,23 @@ def fill_depressions_info(dem, nodata_mask=None, eps=0.0, max_iters=1024,
     return jnp.where(nodata_mask, z, w), iters, done
 
 
-def fill_depressions(dem, no_data=None, eps=0.0, max_iters=1024,
+def fill_depressions(dem, no_data=None, eps=0.0, max_iters=None,
                      scale_diagonal=False):
     """Plain (or epsilon) depression fill; returns the filled raster.
 
     Device counterpart of ``oracle.priority_flood_fill`` /
-    ``oracle.priority_flood_epsilon``.  On TPU this rides the Pallas
-    Gauss–Seidel sweep kernel (same fixpoint; the XLA scan engine's
-    compile time blows up with grid size on the TPU toolchain)."""
+    ``oracle.priority_flood_epsilon``; raises if the sweeps do not
+    converge within ``max_iters``."""
     z = jnp.asarray(dem)
-    mask = nodata_like(z, no_data)
-    if jax.default_backend() == "tpu":
-        from richdem_tpu.ops.pallas_folded import fill_fixpoint_pallas
-        eps_diag = eps * float(np.sqrt(2.0)) if scale_diagonal else None
-        filled, _, _ = fill_fixpoint_pallas(z, mask, eps=eps,
-                                            eps_diag=eps_diag,
-                                            max_iters=max_iters)
-        return filled.astype(z.dtype)
-    filled, _, _ = fill_depressions_info(z, mask, eps=eps,
-                                         max_iters=max_iters,
-                                         scale_diagonal=scale_diagonal)
+    filled, _, done = fill_depressions_info(z, nodata_like(z, no_data),
+                                            eps=eps, max_iters=max_iters,
+                                            scale_diagonal=scale_diagonal)
+    require_converged(done, "depression fill",
+                      max_iters or fixpoint_cap(z.shape))
     return filled
 
 
-def fill_epsilon(dem, no_data=None, eps=None, max_iters=1024):
+def fill_epsilon(dem, no_data=None, eps=None, max_iters=None):
     """Epsilon fill with an automatically chosen epsilon by default."""
     if eps is None:
         eps = auto_epsilon(np.asarray(dem))

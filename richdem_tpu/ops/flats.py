@@ -6,9 +6,10 @@ Device counterpart of the reference's ``flats/flat_resolution.hpp``
 are unit-weight shortest-path problems, so each runs on the sweep engine
 (:mod:`richdem_tpu.ops.sweeps`) in a handful of log-depth sweeps:
 
-1. flat membership  — 0/1-cost flood from NO_FLOW cells over equal-elevation
-   edges (a flat is the connected equal-z component containing a NO_FLOW
-   cell; label-free, since two distinct flats cannot be adjacent at equal z);
+1. flat membership  — a local predicate standing in for the flood from
+   NO_FLOW cells over equal-elevation edges (see ``_resolve_impl``; a flat
+   is the connected equal-z component containing a NO_FLOW cell,
+   label-free since two distinct flats cannot be adjacent at equal z);
 2. ``T`` towards-lower — hop distance from the flat's outlet cells;
 3. ``D`` away-from-higher — hop distance (seeded at 1) from cells adjacent
    to strictly higher ground, through NO_FLOW flat cells;
@@ -27,10 +28,10 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from richdem_tpu.ops.stencil import neighbor, nodata_like
-from richdem_tpu.ops.sweeps import BIG, minplus_fixpoint
+from richdem_tpu.ops.sweeps import (BIG, fixpoint_cap, minplus_fixpoint,
+                                    require_converged)
 from richdem_tpu.topology import DR, NO_FLOW
 
 __all__ = ["resolve_flats", "flat_mask_and_labels_device"]
@@ -63,11 +64,15 @@ def _resolve_impl(z, fd, nodata_mask, max_iters):
     nb_data = jnp.stack([~jnp.isnan(zb) for zb in z_nb])
     nb_higher = jnp.stack([zb > zed for zb in z_nb])
 
-    # 1. flat membership: flood from NO_FLOW cells across equal-z edges.
-    member_cost = _edge_costs(z_eq & data[None] & nb_data)
-    reach, i0, d0 = _dist(jnp.where(noflow, 0.0, BIG), member_cost,
-                          max_iters)
-    in_flat = reach < _UNREACHED
+    # 1. flat membership.  Exact membership is a flood from NO_FLOW cells
+    # across equal-z edges; every edge predicate below already requires
+    # ``z_eq`` between the two cells, and NO_FLOW cells are members by
+    # definition, so the local closure ``noflow | (data ∧ ∃ equal-z data
+    # neighbour)`` changes no resolved direction or mask value: a
+    # superset cell can seed or relax a NO_FLOW chain only through an
+    # equal-z adjacency, which would make it an exact member too.  The
+    # ``in_flat`` diagnostic is that superset.
+    in_flat = noflow | (data & jnp.any(z_eq & nb_data, axis=0))
 
     def nb_mask(m):
         return jnp.stack([neighbor(m, d, False) for d in range(1, 9)])
@@ -119,152 +124,11 @@ def _resolve_impl(z, fd, nodata_mask, max_iters):
     new_dir = jnp.where(best > 0, (k + 1).astype(fd.dtype),
                         jnp.asarray(NO_FLOW, fd.dtype))
     resolved = jnp.where(drained & (fd == NO_FLOW), new_dir, fd)
-    info = (i0 + i1 + i2 + i3, d0 & d1 & d2 & d3)
-    return resolved, mask.astype(jnp.int32), in_flat, info
-
-
-def _flats_engine():
-    """Production flats-distance engine: ``RICHDEM_TPU_FLATS_ENGINE`` =
-    ``scan`` (2 tropical-scan sweeps/rotation over the folded layout,
-    ops/pallas_scan.py) or ``folded`` (the strip-sequential (1, W)
-    sweeps + per-rotation transposes).  Read per call."""
-    import os
-    return os.environ.get("RICHDEM_TPU_FLATS_ENGINE", _FLATS_DEFAULT)
-
-
-#: "scan" per the round-3 hardware session: the tropical-scan engine
-#: resolves the three distance fixpoints in 80 ms vs 108 ms folded at
-#: 4096² (tools/hw_r3_logs/probe_flats_4096.log), bitwise equal, and
-#: its exact gates pass on hardware (tests/test_tpu_only.py).
-_FLATS_DEFAULT = "scan"
-
-
-@partial(jax.jit, static_argnames=("max_iters", "engine", "fold_pad",
-                                   "scan_depth"))
-def _resolve_impl_pallas(z, fd, nodata_mask, max_iters, engine="folded",
-                         fold_pad=None, scan_depth=0):
-    """TPU variant: the BFS fixpoints run as Pallas masked-distance
-    sweeps (``ops.pallas_sweeps.dist_fixpoint_pallas``); seed/combine
-    logic stays XLA.  Same ``(resolved, mask)`` as :func:`_resolve_impl`.
-
-    Membership shortcut (saves the whole "member" flood fixpoint): every
-    edge predicate below already requires ``z_eq`` between the two cells,
-    and NO_FLOW cells are flat members by definition, so exact
-    connected-component membership can be replaced by the LOCAL closure
-    predicate ``quasi = noflow | (data ∧ ∃ equal-z data neighbor)``
-    without changing any resolved direction or mask value: a quasi-only
-    cell can seed/relax a NO_FLOW chain only through an equal-z
-    adjacency — which would have made it an exact member too.  (The
-    superset differs only on equal-z components containing no NO_FLOW
-    cell, which produce no drained cells and no mask.)  The returned
-    ``in_flat`` diagnostic is therefore this superset."""
-    from richdem_tpu.ops.pallas_sweeps import (_F_DATA, _F_INFLAT,
-                                               _F_NOFLOW, _dist_context,
-                                               dist_fixpoint_pallas)
-
-    zbig = jnp.float32(3.0e37)
-    zf = z.astype(jnp.float32)
-    data = ~nodata_mask
-    noflow = (fd == NO_FLOW) & data
-    zed = jnp.where(nodata_mask, zbig, zf)
-
-    # Incremental reductions over the 8 directions: the stacked
-    # (8, H, W) z_eq/nb_higher/slopes temporaries cost ~0.5 GB each at
-    # 4096² and XLA materializes them around the argmax; one shift at a
-    # time keeps everything fused elementwise (bitwise-identical
-    # results — strict-> updates reproduce argmax's first-max
-    # tie-break).
-    any_eq = jnp.zeros(zed.shape, bool)
-    any_higher = jnp.zeros(zed.shape, bool)
-    for d in range(1, 9):
-        zb = neighbor(zed, d, jnp.nan)
-        any_eq |= (zed == zb) & (zb < zbig)
-        any_higher |= (zb > zed) & (zb < zbig)
-    in_flat = data & (noflow | any_eq)
-
-    state = (data * _F_DATA + noflow * _F_NOFLOW
-             + in_flat * _F_INFLAT).astype(jnp.int32)
-    if engine == "scan":
-        from richdem_tpu.ops.pallas_scan import dist_fixpoint_scan
-
-        def dist_fixpoint(w0, _ctx, mode, step, max_iters,
-                          return_info=False):
-            # scan_depth is threaded as a STATIC arg (not read from the
-            # env here) because this runs at trace time under jit and
-            # the cache key must include it
-            return dist_fixpoint_scan(w0, zed, state, mode, step,
-                                      max_iters, fold_pad=fold_pad,
-                                      return_info=return_info,
-                                      depth=scan_depth)
-
-        ctx = None
-    else:
-        dist_fixpoint = dist_fixpoint_pallas
-        ctx = _dist_context(zed, state)
-
-    h, w = z.shape
-    rows = jnp.arange(h)[:, None]
-    cols = jnp.arange(w)[None, :]
-    on_border = (rows == 0) | (rows == h - 1) | (cols == 0) | (cols == w - 1)
-    near_nodata = jnp.zeros(zed.shape, bool)
-    for d in range(1, 9):
-        near_nodata |= neighbor(nodata_mask, d, False)
-    drain = noflow & (on_border | near_nodata)
-    outlet = in_flat & (~noflow | drain)
-    high_seed = noflow & in_flat & any_higher
-
-    T, i1, d1 = dist_fixpoint(jnp.where(outlet, 0.0, BIG), ctx,
-                                     "towards", 1.0, max_iters,
-                                     return_info=True)
-    D, i2, d2 = dist_fixpoint(jnp.where(high_seed, 1.0, BIG), ctx,
-                                     "away", 1.0, max_iters,
-                                     return_info=True)
-    d_finite = jnp.where(D < _UNREACHED, D, 0.0)
-    neg_max, i3, d3 = dist_fixpoint(
-        jnp.where(in_flat, -d_finite, BIG), ctx, "maxd", 0.0, max_iters,
-        return_info=True)
-    maxD = -neg_max
-
-    away_term = jnp.where(D < _UNREACHED, maxD + 1.0 - D, 0.0)
-    drained = noflow & ~drain & in_flat & (T < _UNREACHED)
-    mask = jnp.where(drained, 2.0 * T + away_term, 0.0)
-
-    inv_dr = np.concatenate([[0.0], 1.0 / np.asarray(DR)[1:]])
-    best = jnp.full(mask.shape, -BIG, mask.dtype)
-    kbest = jnp.zeros(mask.shape, jnp.int32)
-    for d in range(1, 9):
-        zb = neighbor(zed, d, jnp.nan)
-        eq = (zed == zb) & (zb < zbig)
-        slope = jnp.where(eq & neighbor(in_flat, d, False),
-                          (mask - neighbor(mask, d, BIG))
-                          * mask.dtype.type(inv_dr[d]), -BIG)
-        upd = slope > best
-        best = jnp.where(upd, slope, best)
-        kbest = jnp.where(upd, d, kbest)
-    new_dir = jnp.where(best > 0, kbest.astype(fd.dtype),
-                        jnp.asarray(NO_FLOW, fd.dtype))
-    resolved = jnp.where(drained & (fd == NO_FLOW), new_dir, fd)
     info = (i1 + i2 + i3, d1 & d2 & d3)
     return resolved, mask.astype(jnp.int32), in_flat, info
 
 
-def _impl():
-    if jax.default_backend() == "tpu":
-        eng = _flats_engine()
-        depth = 0
-        if eng == "scan":
-            from richdem_tpu.ops.pallas_scan import _scan_depth
-            # flat distances are short chains (bounded by flat width):
-            # depth 8 drops the lane-level doubling steps with an
-            # unchanged rotation count, bitwise equal (66.6 vs 76.0 ms
-            # at 4096² — tools/hw_r4_logs/probe_flats_depth.log)
-            depth = _scan_depth(default=8)
-        return partial(_resolve_impl_pallas, engine=eng,
-                       scan_depth=depth)
-    return _resolve_impl
-
-
-def resolve_flats(dem, flowdirs, no_data=None, max_iters=256,
+def resolve_flats(dem, flowdirs, no_data=None, max_iters=None,
                   return_info=False):
     """Return flow directions with flats drained (device op).
     ``return_info`` additionally returns ``(total sweep rotations,
@@ -272,21 +136,21 @@ def resolve_flats(dem, flowdirs, no_data=None, max_iters=256,
     truncation guard)."""
     z = jnp.asarray(dem)
     fd = jnp.asarray(flowdirs)
-    resolved, _, _, info = _impl()(z, fd, nodata_like(z, no_data),
-                                   max_iters)
-    from richdem_tpu.ops.pallas_folded import _require_converged
-    _require_converged(info[1], "flat-resolution distance sweeps",
-                       max_iters)
+    resolved, _, _, info = _resolve_impl(z, fd, nodata_like(z, no_data),
+                                         max_iters)
+    require_converged(info[1], "flat-resolution distance sweeps",
+                      max_iters or fixpoint_cap(z.shape))
     if return_info:
         return resolved, info[0], info[1]
     return resolved
 
 
-def flat_mask_and_labels_device(dem, flowdirs, no_data=None, max_iters=256):
+def flat_mask_and_labels_device(dem, flowdirs, no_data=None,
+                                max_iters=None):
     """(flat_mask, in_flat) diagnostic view (labels are implicit — the
     mask is already per-flat consistent)."""
     z = jnp.asarray(dem)
     fd = jnp.asarray(flowdirs)
-    _, mask, in_flat, _ = _impl()(z, fd, nodata_like(z, no_data),
-                                  max_iters)
+    _, mask, in_flat, _ = _resolve_impl(z, fd, nodata_like(z, no_data),
+                                        max_iters)
     return mask, in_flat

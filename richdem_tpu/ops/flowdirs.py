@@ -70,12 +70,7 @@ _d8_flowdirs_impl = partial(jax.jit, static_argnames=("topology",))(d8_core)
 
 def d8_flowdirs(dem, no_data=None, topology="D8", cellsize=1.0):
     """Steepest-descent single flow directions (O'Callaghan & Marks 1984;
-    reference ``flowmet/d8_flowdirs.hpp``).  Pallas single-pass kernel on
-    TPU; XLA shifted-array stencil elsewhere (identical output)."""
-    if jax.default_backend() == "tpu":
-        from richdem_tpu.ops.pallas_stencils import d8_flowdirs_pallas
-        return d8_flowdirs_pallas(dem, no_data=no_data, topology=topology,
-                                  cellsize=cellsize)
+    reference ``flowmet/d8_flowdirs.hpp``), as one fused XLA stencil."""
     z = jnp.asarray(dem)
     return _d8_flowdirs_impl(z, nodata_like(z, no_data),
                              jnp.asarray(cellsize, jnp.float32), topology)
@@ -98,16 +93,9 @@ def rho8_flowdirs(dem, no_data=None, key=None, seed=0, topology="D8",
 
     Same randomized-diagonal-distance construction as the oracle
     (``1 + tan(u·pi/4)`` — see oracle docstring for the unbiasedness
-    derivation).  On TPU the Pallas stencil draws its randomness
-    in-kernel (``pltpu.prng`` — no XLA threefry pass); elsewhere, and
-    when an explicit ``key`` is given, randomness comes from
-    ``jax.random`` keys.  The two streams differ; all gates are
-    statistical (SURVEY.md §4d)."""
+    derivation).  Randomness comes from ``jax.random`` (``key``, or
+    ``PRNGKey(seed)``); the gates are statistical (SURVEY.md §4d)."""
     z = jnp.asarray(dem)
-    if key is None and jax.default_backend() == "tpu":
-        from richdem_tpu.ops.pallas_stencils import rho8_flowdirs_pallas
-        return rho8_flowdirs_pallas(z, no_data=no_data, topology=topology,
-                                    cellsize=cellsize, seed=seed)
     if key is None:
         key = jax.random.PRNGKey(seed)
     return _rho8_impl(z, nodata_like(z, no_data),

@@ -1,8 +1,8 @@
 """Orlandini 2003 D8-LTD/LAD as a device iterate-to-fixpoint (XLA).
 
 Counterpart of the reference's ``flowmet/Orlandini2003.hpp`` (SURVEY.md
-§2.2, which asked for "TPU via iterate-to-fixpoint over the deviation
-field" as the alternative to oracle-only).  The method is path-
+§2.2, which asked for a device iterate-to-fixpoint over the deviation
+field as the alternative to oracle-only).  The method is path-
 sequential: each cell's choice between the two facet-bracketing D8
 directions depends on the cumulative deviation δ carried from upstream.
 

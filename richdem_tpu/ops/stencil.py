@@ -5,8 +5,7 @@ returns, for each cell, the value of its direction-``d`` neighbor (package
 encoding, :mod:`richdem_tpu.topology`), with a caller-chosen fill for
 off-grid.  XLA fuses chains of these pads/slices with the consuming
 elementwise math into a single HBM pass, which is the speed-of-light plan
-for stencils on TPU; the Pallas kernels in :mod:`richdem_tpu.ops.pallas`
-exist for the cases XLA's fusion misses.
+for stencils.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Masked min-plus sweep engine: the TPU-native replacement for the
+"""Masked min-plus sweep engine: the data-parallel replacement for the
 reference's priority queues.
 
 Depression filling, flat-resolution BFS distances, and least-cost fields are
@@ -20,8 +20,8 @@ fixpoint; here it is computed by *directional sweeps*:
                             max( max(l_b, l_a + e_b), w + e_a + e_b ) )
 
   so a full row/column relaxation runs as one ``lax.associative_scan`` —
-  log-depth, fully parallel across the other axis.  This is the TPU analog
-  of the reference's sequential Planchon–Darboux-style sweeps.
+  log-depth, fully parallel across the other axis.  This is the parallel
+  analog of the reference's sequential Planchon–Darboux-style sweeps.
 * Diagonal edges are relaxed by an 8-neighbor Jacobi step each iteration.
 
 Starting from ``W = +BIG`` (unreached), iteration is monotone nonincreasing
@@ -33,10 +33,7 @@ degrade gracefully toward the Jacobi bound.
 Infinities are represented by ±BIG (finite) so that blocked-edge arithmetic
 (``-inf + inf``) can never manufacture NaNs inside the scans.  No clamping
 is needed anywhere: every intermediate is bounded by (chain length)·BIG ≤
-1e6·1e30 ≪ float32 max, so sums cannot overflow.  (Do NOT reintroduce
-``jnp.clip`` inside ``_combine``: a scalar-bounded clip inside a lane-axis
-``associative_scan`` triggers a pathological XLA-TPU compile-time blowup —
-measured 160 s vs 0.8 s at 1024² on v5e.)
+1e6·1e30 ≪ float32 max, so sums cannot overflow.
 """
 
 from __future__ import annotations
@@ -48,10 +45,34 @@ import jax.numpy as jnp
 from jax import lax
 
 __all__ = ["BIG", "minplus_fixpoint", "minplus_fixpoint_core",
-           "minplus_sweep_once", "jacobi_step"]
+           "minplus_sweep_once", "jacobi_step", "require_converged",
+           "fixpoint_cap"]
 
 #: Finite stand-in for infinity (fits comfortably in float32).
 BIG = 1.0e30
+
+def fixpoint_cap(shape):
+    """Default iteration cap of a min-plus fixpoint on an (H, W) grid.
+
+    Plain fills converge in a handful of iterations, but an ε fill or a
+    flat-distance field needs about one iteration per diagonal step of
+    its longest shortest path (measured ~0.5·H on square grids), so the
+    cap scales with the grid.  It bounds the loop, never the result: the
+    converged flag is the guarantee."""
+    return 2 * (shape[-2] + shape[-1])
+
+
+def require_converged(done, what, cap):
+    """Raise on a concrete unconverged fixpoint: a truncated fill or
+    accumulation is a wrong answer, never a degraded one.  Inside ``jit``
+    the flag is a tracer; the caller then returns it to a caller that can
+    check it."""
+    if isinstance(done, jax.core.Tracer):
+        return
+    if not bool(done):
+        raise RuntimeError(
+            f"{what} did not converge within {cap} iterations; "
+            "raise the cap")
 
 
 def _combine(a, b):
@@ -68,45 +89,34 @@ def _axis_sweep(w, floor, cost_in, axis, reverse, boundary):
     """One directional relaxation along ``axis`` via associative scan.
 
     ``cost_in[c]`` is the cost of the edge INTO cell ``c`` from its
-    predecessor along the sweep direction; ``boundary`` is the incoming
-    value from off-grid (e.g. ``-BIG`` = the edge drains, ``+BIG`` = no
-    injection).
-
-    The scan is ALWAYS performed along axis -2: a lane-axis (minor-dim)
-    ``associative_scan`` triggers a size-dependent XLA-TPU compile-time
-    blowup (minutes at 2048², hours at 8192² — measured on v5e), while the
-    equivalent transpose + major-axis scan compiles in ~1 s and the
-    transposes are cheap relayouts.
+    predecessor along the sweep direction (a scalar for uniform costs);
+    ``boundary`` is the incoming value from off-grid (e.g. ``-BIG`` = the
+    edge drains, ``+BIG`` = no injection).
     """
+    cost_in = jnp.broadcast_to(cost_in, w.shape)
     axis = w.ndim + axis if axis < 0 else axis
-    transpose = axis == w.ndim - 1
-    if transpose:
-        w, floor, cost_in = (jnp.swapaxes(a, -1, -2)
-                             for a in (w, floor, cost_in))
-    if reverse:
-        w = jnp.flip(w, -2)
-        floor = jnp.flip(floor, -2)
-        cost_in = jnp.flip(cost_in, -2)
     h, low, e = lax.associative_scan(
-        _combine, (w, floor, cost_in), axis=-2)
-    out = jnp.minimum(h, jnp.maximum(low, boundary + e))
-    if reverse:
-        out = jnp.flip(out, -2)
-    if transpose:
-        out = jnp.swapaxes(out, -1, -2)
-    return out
+        _combine, (w, floor, cost_in), axis=axis, reverse=reverse)
+    return jnp.minimum(h, jnp.maximum(low, boundary + e))
+
+
+def _cost(costs, d):
+    """Edge cost into each cell from its direction-``d`` neighbour:
+    ``costs`` is a scalar (uniform) or an (8, H, W) stack."""
+    return costs if costs.ndim == 0 else costs[d - 1]
 
 
 def jacobi_step(w, floor, costs, boundary):
     """One full 8-neighbor Jacobi relaxation (carries diagonal edges).
 
-    ``costs``: (8, H, W) edge costs into each cell from direction d = k+1.
+    ``costs``: scalar or (8, H, W) edge costs into each cell from
+    direction d = k+1.
     """
     from richdem_tpu.ops.stencil import neighbor
 
     best = jnp.full_like(w, BIG)
     for d in range(1, 9):
-        cand = neighbor(w, d, boundary) + costs[d - 1]
+        cand = neighbor(w, d, boundary) + _cost(costs, d)
         best = jnp.minimum(best, cand)
     return jnp.minimum(w, jnp.maximum(floor, best))
 
@@ -114,29 +124,33 @@ def jacobi_step(w, floor, costs, boundary):
 def minplus_sweep_once(w, floor, costs, boundary):
     """One iteration: W→E, E→W, N→S, S→N scans + one Jacobi step.
 
-    ``costs``: (8, H, W); index k is the cost into a cell from its
-    direction-(k+1) neighbor (package D8 encoding: 1=W, 3=N, 5=E, 7=S).
+    ``costs``: scalar or (8, H, W); index k is the cost into a cell from
+    its direction-(k+1) neighbor (package D8 encoding: 1=W, 3=N, 5=E,
+    7=S).
     """
-    w = _axis_sweep(w, floor, costs[0], axis=-1, reverse=False,
+    w = _axis_sweep(w, floor, _cost(costs, 1), axis=-1, reverse=False,
                     boundary=boundary)  # from W neighbors, sweeping east
-    w = _axis_sweep(w, floor, costs[4], axis=-1, reverse=True,
+    w = _axis_sweep(w, floor, _cost(costs, 5), axis=-1, reverse=True,
                     boundary=boundary)  # from E neighbors, sweeping west
-    w = _axis_sweep(w, floor, costs[2], axis=-2, reverse=False,
+    w = _axis_sweep(w, floor, _cost(costs, 3), axis=-2, reverse=False,
                     boundary=boundary)  # from N neighbors, sweeping south
-    w = _axis_sweep(w, floor, costs[6], axis=-2, reverse=True,
+    w = _axis_sweep(w, floor, _cost(costs, 7), axis=-2, reverse=True,
                     boundary=boundary)  # from S neighbors, sweeping north
     w = jacobi_step(w, floor, costs, boundary)
     return w
 
 
-def minplus_fixpoint_core(w0, floor, costs, boundary, max_iters=256,
+def minplus_fixpoint_core(w0, floor, costs, boundary, max_iters=None,
                           check_every=1):
     """Un-jitted fixpoint core — usable inside ``shard_map``/other jits.
     See :func:`minplus_fixpoint`."""
     w0 = jnp.asarray(w0)
+    if max_iters is None:
+        max_iters = fixpoint_cap(w0.shape)
     floor = jnp.broadcast_to(jnp.asarray(floor, w0.dtype), w0.shape)
-    costs = jnp.broadcast_to(
-        jnp.asarray(costs, w0.dtype), (8,) + w0.shape)
+    costs = jnp.asarray(costs, w0.dtype)
+    if costs.ndim:
+        costs = jnp.broadcast_to(costs, (8,) + w0.shape)
     boundary = jnp.asarray(boundary, w0.dtype)
 
     def cond(state):
@@ -159,11 +173,12 @@ def minplus_fixpoint_core(w0, floor, costs, boundary, max_iters=256,
 
 
 @partial(jax.jit, static_argnames=("max_iters", "check_every"))
-def minplus_fixpoint(w0, floor, costs, boundary, max_iters=256,
+def minplus_fixpoint(w0, floor, costs, boundary, max_iters=None,
                      check_every=1):
     """Iterate sweeps to convergence (jitted entry).
 
-    Returns ``(w, iters, converged)``.  ``costs`` may be scalar (uniform
+    Returns ``(w, iters, converged)``; ``max_iters`` defaults to
+    :func:`fixpoint_cap` of the grid.  ``costs`` may be scalar (uniform
     edge cost, e.g. fill epsilon) or an (8, H, W) array; ``boundary`` is
     the off-grid value (scalar).
 

@@ -4,9 +4,8 @@ Device counterpart of the reference's ``TA_*`` family (SURVEY.md §2.2,
 appendix A.8) and of :mod:`richdem_tpu.oracle.terrain` — Horn 1981
 slope/aspect, Zevenbergen & Thorne 1987 curvatures.  All derivatives come
 from one pass over the 8 neighbor views; XLA fuses the whole computation
-into a single HBM-bound kernel (the per-chip speed-of-light case the
-baseline targets).  A hand-tiled Pallas variant lives in
-:mod:`richdem_tpu.ops.pallas.terrain_kernel`.
+into a single HBM-bound kernel (the per-device speed-of-light case the
+baseline targets).
 """
 
 from __future__ import annotations
@@ -85,16 +84,10 @@ _terrain_impl = partial(jax.jit, static_argnames=("attrib",))(terrain_core)
 
 
 def terrain_attribute(dem, attrib, zscale=1.0, cellsize=1.0, no_data=None):
-    """One attribute of :data:`TERRAIN_ATTRIBUTES`; nodata cells → nan.
-
-    On TPU this runs the fused single-pass Pallas kernel."""
+    """One attribute of :data:`TERRAIN_ATTRIBUTES`; nodata cells → nan."""
     if attrib not in TERRAIN_ATTRIBUTES:
         raise ValueError(f"unknown terrain attribute {attrib!r}; "
                          f"expected one of {TERRAIN_ATTRIBUTES}")
-    if jax.default_backend() == "tpu":
-        from richdem_tpu.ops.pallas_stencils import terrain_attribute_pallas
-        return terrain_attribute_pallas(dem, attrib, zscale=zscale,
-                                        cellsize=cellsize, no_data=no_data)
     z = jnp.asarray(dem)
     return _terrain_impl(z, nodata_like(z, no_data),
                          jnp.asarray(zscale, jnp.float32),

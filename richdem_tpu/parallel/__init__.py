@@ -3,7 +3,7 @@ terrain analysis.
 
 The reference scales by MPI tile decomposition with a producer-rank
 perimeter-graph merge [P1][P2].  Here the same spatial decomposition rides
-TPU-native machinery instead (SURVEY.md §5.7/§5.8):
+device-mesh machinery instead (SURVEY.md §5.7/§5.8):
 
 * a 2-D ``jax.sharding.Mesh`` over devices (``richdem_tpu.parallel.mesh``);
 * ``shard_map`` kernels with 1-cell halo exchange via ``lax.ppermute``

@@ -1,12 +1,12 @@
 """Halo exchange over the device mesh via ``lax.ppermute``.
 
-The TPU-native form of the reference's perimeter exchange [P1]: instead of
+The device-mesh form of the reference's perimeter exchange [P1]: instead of
 MPI send/recv through a producer rank, each shard swaps 1-cell (or k-cell)
 halos with its 4 mesh neighbors in two stages — rows along ``y``, then
 columns of the row-extended block along ``x`` — which carries the diagonal
-corners implicitly.  Neighbor ``ppermute`` maps straight onto ICI links on
-a TPU torus (strictly better than the reference's star topology —
-SURVEY.md §2.4 parallelism table).
+corners implicitly.  Neighbour ``ppermute`` is point-to-point between
+mesh neighbours (strictly better than the reference's star topology —
+SURVEY.md §2.4 parallelism table); on GPUs XLA hands it to NCCL.
 
 All functions here must be called inside ``shard_map`` with mesh axes
 ``("y", "x")``.

@@ -1,9 +1,9 @@
 """Device-mesh construction for spatial domain decomposition.
 
 The DEM grid is sharded over a 2-D mesh with axes ``("y", "x")`` —
-the TPU analog of the reference's rectangular tile grid [P1]
+the device analog of the reference's rectangular tile grid [P1]
 (SURVEY.md §2.4): each device owns one contiguous tile; neighbor halos ride
-ICI via ``ppermute`` (:mod:`richdem_tpu.parallel.halo`).
+``ppermute`` (:mod:`richdem_tpu.parallel.halo`).
 """
 
 from __future__ import annotations

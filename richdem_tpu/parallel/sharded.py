@@ -71,12 +71,7 @@ def _global_any(flag):
 
 def _local_fill_solve(ext, floor_ext, eps, inner_iters):
     """Exact local fill fixpoint on the halo-extended block, ring clamped
-    (``w0 == floor`` on the ring).  Pallas sweeps on TPU, XLA elsewhere."""
-    if jax.default_backend() == "tpu":
-        from richdem_tpu.ops.pallas_folded import fill_fixpoint_pallas
-        new_ext, _, _ = fill_fixpoint_pallas(
-            floor_ext, eps=eps, max_iters=inner_iters, w0=ext)
-        return new_ext
+    (``w0 == floor`` on the ring)."""
     new_ext, _, _ = minplus_fixpoint_core(
         ext, floor_ext, jnp.asarray(eps, ext.dtype),
         boundary=jnp.asarray(-BIG, ext.dtype), max_iters=inner_iters)
@@ -84,7 +79,7 @@ def _local_fill_solve(ext, floor_ext, eps, inner_iters):
 
 
 def sharded_fill(dem, mesh=None, nodata_mask=None, eps=0.0,
-                 outer_iters=128, inner_iters=128):
+                 outer_iters=128, inner_iters=None):
     """Depression fill, domain-decomposed.  Allclose-identical to
     :func:`richdem_tpu.ops.fill.fill_depressions`."""
     mesh = make_mesh() if mesh is None else mesh
@@ -161,7 +156,7 @@ def sharded_fill_twopass(dem, mesh=None, no_data=None, stats=None,
     O(perimeter) label-graph protocol — exactly two passes, no Schwarz
     iteration (plain fill, eps = 0).
 
-    TPU-resident SPMD recast of the reference's
+    device-resident SPMD recast of the reference's
     ``parallel_priority_flood`` (SURVEY.md §3.4): each host runs the
     DEVICE consumer (:mod:`richdem_tpu.parallel.consumer`) on its own
     addressable shards — local fill + watershed labels + label-graph
@@ -253,12 +248,8 @@ def sharded_d8_flowdirs(dem, mesh=None, nodata_mask=None, cellsize=1.0,
 
 
 def _local_accum_solve(fd, w_eff, max_rotations):
-    """Exact local D8 accumulation (Pallas GS on TPU, XLA GS elsewhere)."""
-    if jax.default_backend() == "tpu":
-        from richdem_tpu.ops.pallas_folded import d8_accumulation_gs
-        return d8_accumulation_gs(fd, weights=w_eff,
-                                  max_rotations=max_rotations)
-    return accum_ops._d8_gs_impl(fd, w_eff, max_rotations=max_rotations)[0]
+    """Exact local D8 accumulation (the single-device D8 engine)."""
+    return accum_ops.d8_accumulation_info(fd, w_eff, max_rotations)[0]
 
 
 def sharded_accumulation_d8(flowdirs, mesh=None, weights=None,
@@ -380,12 +371,7 @@ def sharded_accumulation_d8_twopass(flowdirs, mesh=None, weights=None,
 
 
 def _local_mfd_solve(props, w_eff, max_rotations):
-    """Exact local multi-flow accumulation (Pallas GS on TPU, Jacobi
-    elsewhere)."""
-    if jax.default_backend() == "tpu":
-        from richdem_tpu.ops.pallas_mfd import mfd_accumulation_gs
-        return mfd_accumulation_gs(props, weights=w_eff,
-                                   max_rotations=max_rotations)
+    """Exact local multi-flow accumulation (Jacobi)."""
     acc, _, _ = accum_ops.accumulation_jacobi_info(props, w_eff)
     return acc
 

@@ -1,6 +1,6 @@
 """Shared [P1]/[P2] two-pass protocol drivers over abstract tile sources.
 
-These drivers orchestrate the TPU-resident consumers
+These drivers orchestrate the device-resident consumers
 (:mod:`richdem_tpu.parallel.consumer`) over any tiling — disk memmaps
 (:mod:`richdem_tpu.parallel.outofcore`), in-HBM device-mesh shards
 (:mod:`richdem_tpu.parallel.sharded`), or per-process shard subsets
@@ -371,13 +371,5 @@ def accum_twopass_run(get_fd, get_weights, put_acc, rows, cols, shape,
 
 
 def _local_solve(fd_t, wt):
-    import jax
-
-    if jax.default_backend() == "tpu":
-        from richdem_tpu.ops.pallas_folded import d8_accumulation_gs
-        return d8_accumulation_gs(fd_t, weights=wt)
-    from richdem_tpu.ops.accum import _d8_gs_impl
-    from richdem_tpu.ops.pallas_folded import _require_converged
-    acc, _, done = _d8_gs_impl(fd_t, wt)
-    _require_converged(done, "two-pass local D8 solve", 64)
-    return acc
+    from richdem_tpu.ops.accum import d8_accumulation
+    return d8_accumulation(fd_t, weights=wt)

@@ -6,11 +6,9 @@ fill→flowdir→accum on a 10k×10k DEM) and the ``entry()`` model for the
 driver.  Single-device here; the domain-decomposed version lives in
 :func:`richdem_tpu.parallel.sharded.sharded_pipeline`.
 
-Backend dispatch: on TPU the hot stages run as Pallas kernels
-(:mod:`richdem_tpu.ops.pallas_sweeps` / ``ops.pallas_stencils``) — the XLA
-sweep graphs hit a size-dependent compile blowup on the TPU toolchain and
-the Pallas strip kernels are faster anyway; on CPU (tests, oracle
-cross-checks) the pure-XLA ops run the same math.
+Every stage is plain XLA except D8 accumulation, whose engine
+:func:`richdem_tpu.ops.accum.d8_accumulation_info` picks per platform
+(the row-walk kernel on a GPU).
 """
 
 from __future__ import annotations
@@ -20,7 +18,7 @@ import jax.numpy as jnp
 
 from richdem_tpu.ops.sweeps import BIG, minplus_fixpoint_core
 from richdem_tpu.ops.flowdirs import d8_core
-from richdem_tpu.ops.accum import _d8_gs_impl
+from richdem_tpu.ops.accum import d8_accumulation_info
 from richdem_tpu.ops.terrain import terrain_core
 from richdem_tpu.methods import twi as _twi
 
@@ -30,11 +28,7 @@ __all__ = ["terrain_pipeline", "make_pipeline", "resumable_pipeline",
            "check_converged"]
 
 
-def _use_pallas() -> bool:
-    return jax.default_backend() == "tpu"
-
-
-def _pipeline_xla(z, nodata, eps, cellsize, fill_iters, rounds):
+def _pipeline(z, nodata, eps, cellsize, fill_iters, rounds, with_twi):
     neg = jnp.asarray(-BIG, z.dtype)
     floor = jnp.where(nodata, neg, z)
     w0 = jnp.where(nodata, neg, jnp.asarray(BIG, z.dtype))
@@ -44,33 +38,11 @@ def _pipeline_xla(z, nodata, eps, cellsize, fill_iters, rounds):
     filled = jnp.where(nodata, z, filled)
     fd = d8_core(filled, nodata, jnp.asarray(cellsize, jnp.float32))
     weights = jnp.where(nodata, 0.0, 1.0).astype(jnp.float32)
-    acc, aiters, adone = _d8_gs_impl(fd, weights, max_rotations=rounds)
-    return (filled, fd, jnp.where(nodata, 0.0, acc), fiters, aiters,
-            fdone, adone)
-
-
-def _pipeline_pallas(z, nodata, eps, cellsize, fill_iters, rounds):
-    from richdem_tpu.ops.pallas_folded import (fill_fixpoint_pallas,
-                                               d8_accumulation_gs)
-    from richdem_tpu.ops.pallas_stencils import _d8_impl
-
-    filled, fiters, fdone = fill_fixpoint_pallas(z, nodata, eps=eps,
-                                                 max_iters=fill_iters)
-    fd = _d8_impl(filled, nodata, jnp.asarray(cellsize, jnp.float32),
-                  False)
-    acc, aiters, adone = d8_accumulation_gs(fd, no_data_mask=nodata,
-                                            max_rotations=rounds,
-                                            return_info=True)
-    return filled, fd, acc, fiters, aiters, fdone, adone
-
-
-def _pipeline(z, nodata, eps, cellsize, fill_iters, rounds, with_twi):
-    impl = _pipeline_pallas if _use_pallas() else _pipeline_xla
-    filled, fd, acc, fiters, aiters, fdone, adone = impl(
-        z, nodata, eps, cellsize, fill_iters, rounds)
+    acc, aiters, adone = d8_accumulation_info(fd, weights, rounds)
+    acc = jnp.where(nodata, 0.0, acc)
     # convergence flags ride in the output so no caller can silently use
-    # a truncated fixpoint (VERDICT r2 weak #3): the eager wrappers and
-    # bench/CLI entry points assert them once concrete.
+    # a truncated fixpoint: the eager wrappers and bench/CLI entry points
+    # assert them once concrete.
     out = {"filled": filled, "flowdirs": fd, "accum": acc,
            "fill_iters": fiters, "accum_rotations": aiters,
            "fill_converged": fdone, "accum_converged": adone}
@@ -84,7 +56,7 @@ def _pipeline(z, nodata, eps, cellsize, fill_iters, rounds, with_twi):
     return out
 
 
-def make_pipeline(shape, eps=1e-3, cellsize=1.0, fill_iters=256,
+def make_pipeline(shape, eps=1e-3, cellsize=1.0, fill_iters=None,
                   with_twi=False, no_data=None, max_rotations=None):
     """A jitted ``step(dem) -> dict`` closure for a fixed grid shape.
 
@@ -92,8 +64,9 @@ def make_pipeline(shape, eps=1e-3, cellsize=1.0, fill_iters=256,
     returned unchanged) — matching ``resumable_pipeline`` so the cached
     and uncached CLI paths agree.
 
-    The output dict carries ``fill_converged``/``accum_converged`` flags;
-    the rotation caps bound the *loop*, never the result — callers must
+    ``fill_iters`` defaults to :func:`~richdem_tpu.ops.sweeps.fixpoint_cap`
+    of the grid.  The output dict carries ``fill_converged``/
+    ``accum_converged`` flags; the caps bound the *loop*, never the result — callers must
     check the flags (``check_converged``/``terrain_pipeline`` do) rather
     than trust a possibly-truncated fixpoint."""
     from richdem_tpu.ops.stencil import nodata_like
@@ -133,7 +106,7 @@ def check_converged(out):
     return out
 
 
-def terrain_pipeline(dem, eps=1e-3, cellsize=1.0, fill_iters=256,
+def terrain_pipeline(dem, eps=1e-3, cellsize=1.0, fill_iters=None,
                      with_twi=False, no_data=None, max_rotations=None):
     """One-shot convenience wrapper around :func:`make_pipeline`;
     raises on non-convergence (no silent truncation)."""

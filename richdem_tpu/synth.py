@@ -1,6 +1,6 @@
 """Synthetic DEM generators for tests and benchmarks.
 
-TPU-native stand-in for the reference's terrain generation layer
+Host-side stand-in for the reference's terrain generation layer
 (SURVEY.md §2.2, ``include/richdem/terrain_generation/``): analytic surfaces
 (cone, saddle, plateau) plus value-noise fractal terrain.  Everything is
 plain numpy so the oracle and the device path share fixtures; ``*_jnp``

@@ -2,10 +2,9 @@
 
 Device-side counterparts of :mod:`richdem_tpu.synth` (the reference's
 terrain-generation layer, SURVEY.md §2.2).  The numpy generators exist for
-tiny oracle fixtures; THESE are what benchmarks and large-scale runs must
-use — the build host's memory bandwidth is pathologically low (measured
-~0.1–0.5 GB/s), so host-side generation of a 8192² raster takes minutes
-while the TPU does it in milliseconds.
+tiny oracle fixtures; THESE are what benchmarks and large-scale runs use:
+the device generates a 10240² raster in milliseconds, where host-side
+numpy takes seconds and a host-to-device copy besides.
 
 Values are NOT bit-identical to the numpy generators (different RNG
 streams); statistically equivalent terrain with the same knobs.
@@ -20,7 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 
 __all__ = ["cone_dem", "saddle_dem", "plateau_dem", "depression_dem",
-           "perlin_dem", "perlin_dem_rows"]
+           "perlin_dem", "perlin_dem_rows", "with_nodata_holes"]
 
 
 def _coords(height, width, dtype=jnp.float32):
@@ -91,10 +90,9 @@ def perlin_dem(height: int, width: int = None, seed: int = 0,
     """Multi-octave smoothstep value noise, entirely on device.
 
     Above 12288² the whole-grid call is staged through
-    ``perlin_dem_rows`` strips (equal up to backend fusion rounding:
-    bitwise on CPU, ≤1 ulp of the amplitude apart on TPU — see its
-    docstring): one 16384² gather holds ~20 grid-sized HLO temps live
-    and OOMs HBM, while 8 strip dispatches peak at ~2 grid-sizes."""
+    ``perlin_dem_rows`` strips (equal up to backend fusion rounding —
+    see its docstring): one whole-grid gather holds ~20 grid-sized
+    temporaries live, while 8 strip dispatches peak at ~2 grid-sizes."""
     width = height if width is None else width
     if height * width > 12288 * 12288:
         bh = -(-height // 8)
@@ -126,11 +124,10 @@ def perlin_dem_rows(height: int, width: int, row0: int, nrows: int,
     the per-octave lattices are seeded and shaped from the GLOBAL dims
     and every per-cell op is elementwise over globally-offset
     coordinates, so the strip equals slicing the full field —
-    bit-identical on CPU (tests/test_synth_jax.py); on the TPU backend
-    XLA's excess-precision fusion rounds the two programs apart by ≤1
-    ulp of the amplitude (measured 7.6e-6 on amp=100 — either field is
-    a valid, deterministic DEM).  This is how anything larger than HBM
-    must be staged (a full 16384² call OOMs on ~20 grid-sized temps)."""
+    bit-identical on CPU (tests/test_synth_jax.py); an accelerator
+    backend's excess-precision fusion may round the two programs apart
+    by ≤1 ulp of the amplitude (either field is a valid, deterministic
+    DEM).  This is how a grid too large for one gather is staged."""
     base_period = (max(height, width) // 4 if base_period is None
                    else base_period)
     base_period = max(base_period, 2)
@@ -160,3 +157,29 @@ def perlin_dem_rows(height: int, width: int, row0: int, nrows: int,
         total_amp += amp
         amp *= 0.5
     return z * (amplitude / total_amp)
+
+
+def with_nodata_holes(dem, no_data=-9999.0, seed=0, n_holes=4,
+                      max_radius=None):
+    """Punch circular nodata holes into a device DEM (the device
+    counterpart of :func:`richdem_tpu.synth.with_nodata_holes`)."""
+    h, w = dem.shape
+    max_radius = max(h, w) // 10 if max_radius is None else max_radius
+    return _holes(dem, jnp.float32(no_data), seed, n_holes,
+                  float(max(max_radius, 2)))
+
+
+@partial(jax.jit, static_argnames=("n_holes",))
+def _holes(dem, no_data, seed, n_holes, max_radius):
+    h, w = dem.shape
+    ky, kx, kr = jax.random.split(jax.random.PRNGKey(seed), 3)
+    cy = jax.random.uniform(ky, (n_holes,)) * h
+    cx = jax.random.uniform(kx, (n_holes,)) * w
+    r = jax.random.uniform(kr, (n_holes,), minval=1.0, maxval=max_radius)
+    y, x = _coords(h, w)
+
+    def body(i, hole):
+        return hole | ((y - cy[i]) ** 2 + (x - cx[i]) ** 2 <= r[i] ** 2)
+
+    hole = jax.lax.fori_loop(0, n_holes, body, jnp.zeros((h, w), bool))
+    return jnp.where(hole, no_data.astype(dem.dtype), dem)

@@ -4,4 +4,4 @@
 __version__ = "0.1.0"
 
 #: Printed by the CLI banner, mirroring the reference's program_identifier.
-PROGRAM_IDENTIFIER = f"richdem_tpu {__version__} (JAX/XLA/Pallas TPU-native)"
+PROGRAM_IDENTIFIER = f"richdem_tpu {__version__} (JAX/XLA/Pallas)"

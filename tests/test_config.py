@@ -53,9 +53,9 @@ def test_per_config_pinned_baseline_dispatch(tmp_path, monkeypatch):
     monkeypatch.setattr(bench, "PINNED_PATH", str(path))
     monkeypatch.delenv("BENCH_BASELINE_CELLS_S", raising=False)
 
-    assert bench.pinned_baseline(None, "pipeline") == (5.5e6, "pinned")
-    assert bench.pinned_baseline(None, "dinf_twi") == (3.5e6, "pinned")
-    assert bench.pinned_baseline(None, "quinn_mfd") == (
+    assert bench.pinned_baseline("pipeline") == (5.5e6, "pinned")
+    assert bench.pinned_baseline("dinf_twi") == (3.5e6, "pinned")
+    assert bench.pinned_baseline("quinn_mfd") == (
         5.5e6, "pinned-pipeline")
     monkeypatch.setenv("BENCH_BASELINE_CELLS_S", "1e6")
-    assert bench.pinned_baseline(None, "dinf_twi") == (1e6, "env")
+    assert bench.pinned_baseline("dinf_twi") == (1e6, "env")

@@ -55,45 +55,38 @@ def test_resolved_fills_drain():
     assert (interior == NO_FLOW).sum() == 0
 
 
-@pytest.mark.parametrize("engine", ["folded", "scan"])
-def test_pallas_quasi_membership_matches_exact(engine):
-    """The TPU resolve replaces the exact flat-membership flood with a
-    local equal-z-neighbor predicate (see _resolve_impl_pallas's
-    docstring for the proof sketch).  Resolved directions and masks must
-    equal the oracle AND the exact-membership CPU implementation
-    bitwise; the in_flat diagnostic may only be a superset.  Both
-    distance engines (strip-sequential folded sweeps and the tropical
-    scan kernels — exact small-integer arithmetic) must agree."""
+@pytest.mark.parametrize("case", ["plateau72", "filled_depressions64",
+                                  "filled_perlin_nodata"])
+def test_quasi_membership_matches_oracle(case):
+    """Flat membership is the local closure predicate, not the flood
+    (see ``_resolve_impl``): resolved directions still equal the
+    oracle's BFS bitwise, and ``in_flat`` covers every oracle flat."""
     import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-
     from richdem_tpu.ops import flats as F
-    from richdem_tpu.ops import pallas_folded
+    dem = {"plateau72": lambda: synth.plateau_dem(72, dtype=np.float64),
+           "filled_depressions64": lambda: oracle.priority_flood_fill(
+               synth.depression_dem(64, seed=5, dtype=np.float64)),
+           "filled_perlin_nodata": lambda: synth.with_nodata_holes(
+               oracle.priority_flood_fill(synth.perlin_dem(
+                   64, seed=2, dtype=np.float64)), no_data=-9999.0),
+           }[case]()
+    nd = dem == -9999.0
+    fd = oracle.d8_flowdirs(dem, no_data=-9999.0)
+    got_fd, _, in_flat, info = F._resolve_impl(
+        jnp.asarray(dem), jnp.asarray(fd), jnp.asarray(nd), 256)
+    assert bool(info[1])
+    want = oracle.resolve_flats(dem, fd, no_data=-9999.0)
+    np.testing.assert_array_equal(np.asarray(got_fd), want)
+    noflow = (fd == NO_FLOW) & ~nd
+    assert np.asarray(in_flat)[noflow].all()
 
-    old_cap = pallas_folded._STRIP_CAP
-    pallas_folded._STRIP_CAP = 16
-    try:
-        for dem in [synth.plateau_dem(72, dtype=np.float64),
-                    oracle.priority_flood_fill(
-                        synth.depression_dem(64, seed=5,
-                                             dtype=np.float64))]:
-            fd = oracle.d8_flowdirs(dem)
-            want_fd = oracle.resolve_flats(dem, fd)
-            nd = jnp.zeros(dem.shape, bool)
-            exact_fd, exact_mask, exact_flat, _ = F._resolve_impl(
-                jnp.asarray(dem), jnp.asarray(fd), nd, 256)
-            with pltpu.force_tpu_interpret_mode():
-                got_fd, got_mask, got_flat, _ = F._resolve_impl_pallas(
-                    jnp.asarray(dem), jnp.asarray(fd), nd, 256,
-                    engine=engine, fold_pad=64)
-            np.testing.assert_array_equal(np.asarray(got_fd), want_fd)
-            np.testing.assert_array_equal(np.asarray(got_fd),
-                                          np.asarray(exact_fd))
-            np.testing.assert_array_equal(np.asarray(got_mask),
-                                          np.asarray(exact_mask))
-            assert (np.asarray(exact_flat) <= np.asarray(got_flat)).all()
-    finally:
-        pallas_folded._STRIP_CAP = old_cap
+
+def test_resolve_flats_f32_plateau():
+    dem = synth.plateau_dem(72, dtype=np.float32)
+    fd = oracle.d8_flowdirs(dem.astype(np.float64))
+    got = np.asarray(resolve_flats(dem, fd))
+    np.testing.assert_array_equal(got, oracle.resolve_flats(
+        dem.astype(np.float64), fd))
 
 
 @pytest.mark.parametrize("method", ["Dinf", "Quinn"])

@@ -130,3 +130,39 @@ def test_orlandini_engine_dispatch():
     dev = rd.FlowDirections(rd.rdarray(filled), method="Orlandini",
                             engine="device")
     np.testing.assert_array_equal(host.np(), dev.np())
+
+
+@pytest.mark.parametrize("topology", ["D8", "D4"])
+def test_d8_f32_filled_matches_oracle(topology):
+    dem = synth.perlin_dem(96, seed=2, dtype=np.float32)
+    filled = oracle.priority_flood_fill(dem.astype(np.float64))
+    got = np.asarray(ops.d8_flowdirs(filled.astype(np.float32),
+                                     topology=topology))
+    np.testing.assert_array_equal(got, oracle.d8_flowdirs(
+        filled, topology=topology))
+
+
+def test_d8_f32_nodata():
+    dem = synth.with_nodata_holes(
+        synth.depression_dem(64, seed=5, dtype=np.float32), no_data=-9999.0)
+    got = np.asarray(ops.d8_flowdirs(dem, no_data=-9999.0))
+    np.testing.assert_array_equal(got, oracle.d8_flowdirs(
+        dem.astype(np.float64), no_data=-9999.0))
+
+
+@pytest.mark.parametrize("theta_deg", [10.0, 30.0])
+def test_rho8_share_matches_aspect(theta_deg):
+    """Fairfield–Leymarie unbiasedness from ``jax.random``: on a plane
+    whose aspect sits θ from a cardinal, the diagonal wins with
+    probability θ/45°; nodata comes back as FLOWDIR_NO_DATA."""
+    import math
+    th = math.radians(theta_deg)
+    y, x = np.mgrid[0:256, 0:256].astype(np.float32)
+    z = -(np.cos(th) * x + np.sin(th) * y)
+    fd = np.asarray(ops.rho8_flowdirs(z, seed=3))
+    inner = fd[2:-2, 2:-2]
+    assert set(np.unique(inner)) <= {5, 6}
+    assert abs((inner == 6).mean() - theta_deg / 45.0) < 0.015
+    z[40:50, 40:50] = -9999.0
+    fd = np.asarray(ops.rho8_flowdirs(z, no_data=-9999.0))
+    assert (fd[40:50, 40:50] == -1).all()

@@ -46,3 +46,24 @@ def test_float32_path():
 def test_unknown_attrib_raises():
     with pytest.raises(ValueError, match="unknown terrain attribute"):
         terrain_attribute(np.zeros((4, 4)), "bogus")
+
+
+@pytest.mark.parametrize("attrib", TERRAIN_ATTRIBUTES)
+def test_f32_scaled_matches_oracle(attrib):
+    """float32 input with zscale and cellsize, every attribute."""
+    dem = synth.perlin_dem(72, seed=2, dtype=np.float32)
+    got = np.asarray(terrain_attribute(dem, attrib, zscale=2.0,
+                                       cellsize=3.0), np.float64)
+    want = oracle.terrain_attribute(dem.astype(np.float64), attrib,
+                                    zscale=2.0, cellsize=3.0)
+    tol = 0.1 if attrib == "aspect" else 2e-3  # angle is ill-conditioned
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+
+
+def test_f32_nodata_is_nan():
+    dem = synth.with_nodata_holes(
+        synth.depression_dem(64, seed=5, dtype=np.float32), no_data=-9999.0)
+    got = np.asarray(terrain_attribute(dem, "slope_radians",
+                                       no_data=-9999.0))
+    assert np.isnan(got[dem == -9999.0]).all()
+    assert np.isfinite(got[dem != -9999.0]).all()
